@@ -1,28 +1,28 @@
-"""spring_tpu — TPU-native FASTQ/FASTA compression framework.
+"""spring_tpu — accelerator-batched FASTQ/FASTA compression framework.
 
 A from-scratch rebuild of the capabilities of SPRING
-(github.com/shubhamchandak94/Spring) designed for TPU hardware: the
-reorder/match search runs as batched JAX programs, entropy coding and byte
-I/O run in native C++ (csrc/), and multi-chip scaling uses jax.sharding
-meshes (parallel/).
+(github.com/shubhamchandak94/Spring): the reorder/match search runs as
+batched, fixed-shape integer JAX programs on the accelerator, entropy
+coding and byte I/O run in native C++ (csrc/), and multi-device scaling
+uses jax.sharding meshes (parallel/).
 """
 import os as _os
+
+# fixed path: the cache directory is part of the cache key, so a path that
+# moved between runs would never hit
+_DEFAULT_CACHE = _os.path.abspath(
+    _os.path.join(_os.path.dirname(__file__), "..", ".jax_cache"))
 
 
 def _enable_compile_cache() -> None:
     """Persistent XLA compilation cache — the reorder round program is large
-    and recompiling it per process dominates small-input runs."""
-    try:
-        import jax
-        cache = _os.environ.get(
-            "SPRING_TPU_JAX_CACHE",
-            _os.path.join(_os.path.dirname(__file__), "..", ".jax_cache"))
-        if cache in ("", "0", "off"):      # explicit opt-out
-            return
-        jax.config.update("jax_compilation_cache_dir", _os.path.abspath(cache))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # jax missing or too old — cache is an optimization only
-        pass
+    and recompiling it per process dominates small-input runs. Where
+    JAX_COMPILATION_CACHE_DIR is set, JAX already uses it and nothing is
+    set here; otherwise the cache lives at <checkout>/.jax_cache."""
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    import jax
+    jax.config.update("jax_compilation_cache_dir", _DEFAULT_CACHE)
 
 
 def _raise_mmap_threshold() -> None:

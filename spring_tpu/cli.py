@@ -16,7 +16,8 @@ from . import api
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spring-tpu",
-        description="TPU-native FASTQ/FASTA compressor (SPRING-class)")
+        description="accelerator-batched FASTQ/FASTA compressor "
+                    "(SPRING-class)")
     mode = p.add_mutually_exclusive_group(required=True)
     mode.add_argument("-c", "--compress", action="store_true")
     mode.add_argument("-d", "--decompress", action="store_true")

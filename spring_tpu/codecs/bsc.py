@@ -92,7 +92,7 @@ def compress_dna_str_array(strings: list[bytes], _force: int | None = None,
     mode 1: 2-bit pack ACGT text, xbc the packed payload — a hard
             ~2.0 bits/base ceiling that wins on low-redundancy blocks where
             BWT+MTF pays ~2.03 (reference libbsc pays ~2.01 on the same
-            input, so mode 1 beats it; see AB_REPORT.md se-l row).
+            input, so mode 1 beats it).
     Archive format v3; decode with decompress_dna_str_array.
     """
     from ..io import packing

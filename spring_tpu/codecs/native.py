@@ -33,8 +33,11 @@ def _needs_build() -> bool:
 
 def _build() -> None:
     target = os.path.basename(_SO)
-    subprocess.run(["make", "-s", "-C", _CSRC, target], check=True,
-                   capture_output=True, text=True)
+    r = subprocess.run(["make", "-s", "-C", _CSRC, target],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"building {target} failed (make exit "
+                           f"{r.returncode}):\n{r.stdout}{r.stderr}")
 
 
 def load() -> ctypes.CDLL:

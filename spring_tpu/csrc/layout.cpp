@@ -167,8 +167,8 @@ int32_t stpu_layout_from_emissions(
 // coordinates, orientation, read length, group rank, and the composite
 // (grank, pos) sort key — ONE parallel pass over contig segments. The
 // numpy chain this replaces allocated ~10 full-length temporaries, and
-// this host's lazily-backed memory runs fresh-page numpy at ~60 MB/s
-// (5+ s at 10M reads, PROFILE.md); the fused pass touches each output
+// a host with lazily-backed memory runs fresh-page numpy at ~60 MB/s
+// (5+ s at 10M reads); the fused pass touches each output
 // once. Returns 0, or -1 if any merged coordinate falls outside int32
 // (a >2 Gbase stitched chain — caller raises instead of corrupting).
 //

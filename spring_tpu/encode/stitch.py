@@ -202,7 +202,7 @@ def stitch_layout(layout: cons.ContigLayout, seq_codes: np.ndarray,
     # rank, and the composite (grank, pos) sort key in ONE parallel
     # pass. The numpy chain this replaces allocated ~10 full-length
     # temporaries — ~6 GB of peak RSS at 100M reads and 5+ s at 10M on
-    # this host's lazily-backed memory (PROFILE.md).
+    # a host with lazily-backed memory.
     import ctypes
     from ..codecs import native
     lib = native.load()

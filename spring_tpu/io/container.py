@@ -5,7 +5,9 @@ Reference analog: the reference shells out to `tar -cf` over its temp dir
 (src/spring.cpp:217-221). We keep the tar interop (the archive can be
 inspected with standard tools) but write it in-process and use a versioned
 JSON manifest (`params.json`) — the raw-struct dump is ABI-fragile and
-deliberately not reproduced.
+deliberately not reproduced. The manifest also carries a CRC32 per member,
+checked on every read: the entropy codecs have no checksum of their own,
+so a corrupted byte would otherwise decode silently into wrong records.
 
 Per-block streams are named `<stream>.<block>` so random-access decompression
 (--decompress-range) can extract only the blocks it needs.
@@ -13,13 +15,16 @@ Per-block streams are named `<stream>.<block>` so random-access decompression
 from __future__ import annotations
 
 import io
+import json
 import os
 import tarfile
+import zlib
 from typing import Iterator, Optional
 
 from ..params import CompressionParams
 
 MANIFEST_NAME = "params.json"
+CRC_KEY = "member_crc32"     # manifest key: {member name: CRC32}
 
 
 def _member_key(name: str) -> tuple:
@@ -42,6 +47,7 @@ class ArchiveWriter:
     def __init__(self, path: str, spooled: bool = False):
         self._tar = tarfile.open(path, "w", format=tarfile.GNU_FORMAT)
         self._names: set[str] = set()
+        self._crc: dict[str, int] = {}
         self._spool = None
         if spooled:
             import tempfile
@@ -57,6 +63,7 @@ class ArchiveWriter:
                 if name in self._names:
                     raise ValueError(f"duplicate archive member {name}")
                 self._names.add(name)
+                self._crc[name] = zlib.crc32(data)
                 off = self._spool.seek(0, 2)
                 self._spool.write(data)
                 self._index[name] = (off, len(data))
@@ -64,6 +71,7 @@ class ArchiveWriter:
         if name in self._names:
             raise ValueError(f"duplicate archive member {name}")
         self._names.add(name)
+        self._crc[name] = zlib.crc32(data)
         info = tarfile.TarInfo(name)
         info.size = len(data)
         self._tar.addfile(info, io.BytesIO(data))
@@ -84,7 +92,10 @@ class ArchiveWriter:
     def finish(self, params: CompressionParams) -> None:
         if self._spool is not None:
             self._flush_spool()
-        self.add_direct(MANIFEST_NAME, params.to_json().encode())
+        manifest = json.loads(params.to_json())
+        manifest[CRC_KEY] = self._crc
+        self.add_direct(MANIFEST_NAME, json.dumps(
+            manifest, indent=1, sort_keys=True).encode())
         self._tar.close()
         if self._spool is not None:
             self._spool.close()
@@ -132,8 +143,11 @@ class ArchiveReader:
         # extractfile().read() seeks a SHARED file object and is not
         # thread-safe — the block-parallel decoder read corrupt bytes
         self._fd = os.open(path, os.O_RDONLY)
+        self._crc: dict[str, int] = {}
         raw = self.get(MANIFEST_NAME)
         self.params = CompressionParams.from_json(raw.decode())
+        # archives written before the CRC map existed carry none
+        self._crc = json.loads(raw).get(CRC_KEY, {})
 
     def __contains__(self, name: str) -> bool:
         return name in self._members
@@ -142,7 +156,12 @@ class ArchiveReader:
         m = self._members.get(name)
         if m is None:
             raise KeyError(f"archive member {name} not found")
-        return os.pread(self._fd, m.size, m.offset_data)
+        data = os.pread(self._fd, m.size, m.offset_data)
+        crc = self._crc.get(name)
+        if crc is not None and zlib.crc32(data) != crc:
+            raise RuntimeError(f"archive member {name} is corrupt "
+                               "(CRC32 mismatch)")
+        return data
 
     def get_block(self, stream: str, block: int) -> bytes:
         return self.get(f"{stream}.{block}")

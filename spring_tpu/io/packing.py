@@ -4,13 +4,13 @@ Reference analog: src/util.cpp:269-374 (write_dna_in_bits / read_dna_from_bits,
 2-bit ACGT packing and 4-bit ACGTN packing into byte streams) and the
 chartorevchar reverse-complement LUT (src/util.h:23-29).
 
-TPU-first redesign: instead of byte streams with per-read headers, reads live
-in fixed-shape arrays —
+Accelerator-first redesign: instead of byte streams with per-read headers,
+reads live in fixed-shape arrays —
   * code arrays: (num_reads, max_len) uint8 with A=0 C=1 G=2 T=3 N=4,
     padded with 0 beyond each read's length;
   * packed arrays: (num_reads, ceil(max_len/16)) uint32, 16 bases/word,
     base i at bits 2*(i%16) of word i//16 (2-bit, ACGT only).
-Fixed shapes are what lets XLA tile the matching kernels onto the VPU/MXU.
+Fixed shapes are what lets XLA compile the matching kernels for the device.
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ Hamming distance via ``((ref^read)&mask).count()`` (src/reorder.h:292-301),
 ``generatemasks`` shifted-compare masks (src/bitset_util.h:223-236), and the
 string<->bitset converters (src/bitset_util.h:57-62).
 
-TPU-first redesign: reads are (n, W) uint32 arrays, 16 bases/word, base i at
-bits 2*(i%16) of word i//16 (see io/packing.py). All ops are elementwise /
-gather ops over fixed shapes so XLA maps them onto the VPU; Hamming distance
-is XOR + fold-odd-even + population_count, ~3 ops per 16 bases.
+Accelerator-first redesign: reads are (n, W) uint32 arrays, 16 bases/word,
+base i at bits 2*(i%16) of word i//16 (see io/packing.py). All ops are
+elementwise / gather ops over fixed shapes so XLA maps them onto the
+device's vector units; Hamming distance is XOR + fold-odd-even +
+population_count, ~3 ops per 16 bases.
 """
 from __future__ import annotations
 
@@ -102,13 +103,14 @@ def pack_np(codes: np.ndarray) -> np.ndarray:
     return pack_codes(codes)
 
 
-# ---------- packed-domain bit arithmetic (no gathers, pure VPU) ----------
+# ---------- packed-domain bit arithmetic (no gathers, elementwise) ----------
 #
 # Dynamic per-row base shifts via word-select + funnel shifts: a traced
 # shift s decomposes as s = 16*q + r; the word part is a select over the
 # (small, static) range of q, the bit part is an elementwise variable
-# shift. This replaces take_along_axis gathers, which lower to scattered
-# per-element loads on TPU (~20x slower than these register ops).
+# shift. This replaces take_along_axis gathers, which lowered to scattered
+# per-element loads on the previous accelerator (kept until measured on
+# the H100, ROADMAP 3.3).
 
 def _word_shift_left(pk: jnp.ndarray, q: int) -> jnp.ndarray:
     """out[w] = pk[w+q] (zeros beyond) — static word shift."""

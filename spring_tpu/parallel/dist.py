@@ -1,8 +1,8 @@
-"""Multi-chip reorder: shard_map over a device mesh, O(B/n) per device.
+"""Multi-device reorder: shard_map over a device mesh, O(B/n) per device.
 
 Reference analog: none — the reference is a single-process OpenMP tool
-(SURVEY.md §2.3). This module is the TPU-native scale-out design. It runs
-the SAME round as the single-chip batch-accept engine (reorder/engine.py)
+(SURVEY.md §2.3). This module is the scale-out design. It runs
+the SAME round as the single-device batch-accept engine (reorder/engine.py)
 — packed u8x4 lane consensus counts, metadata-only probe with group top-k
 before any candidate fetch, batched consensus update, scan-stacked
 emissions, read-only rows with bitmap claims — with every heavy data
@@ -25,8 +25,8 @@ structure sharded:
     walker then top-k selects the GSEL best-priority hitting groups and
     only THOSE ship a candidate-fetch request (one pairs-row gather at
     the owner, C rids back) — the eager all-K fetch this replaces was the
-    round-1 engine shape whose removal cut the single-chip round 17.4 ->
-    7.6 ms (PROFILE.md);
+    round-1 engine shape, and removing it was the single-device engine's
+    largest cut in round time;
   * packed read rows are range-sharded by rid and READ-ONLY: verification
     fetches candidate rows from their owners through a third exchange.
     Claim state lives in the replicated bitmap only (claimed candidates
@@ -46,8 +46,8 @@ per-query slot map (_collect gathers replies back by slot): payloads are
 raw 32-bit patterns and must never be sign-tested on the receiving side
 (a uint32 key with the top bit set is a legitimate value, not an empty
 slot). Dispatch tables and collects are sort+gather end to end — no
-scatters (the scatter-built tables were the diagnosed 10M-on-1-device
-cost, DIST_BENCH chip_1dev_10M).
+scatters (scatter-built tables dominated a 10M-read run on one device of
+the previous accelerator; kept until measured on the H100, ROADMAP 3.3).
 
 Per-round collectives: 2 all_to_alls (probe keys + meta words),
 2 (candidate requests + rids), 2 (row requests + rows), 1 all_gather
@@ -69,11 +69,6 @@ from ..reorder import dictionary as dct
 from ..reorder import engine as eng
 from . import multihost as mh
 
-try:
-    shard_map = jax.shard_map  # jax >= 0.6
-except Exception:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
-
 # decorrelated from BOTH table hashes (_HASH_MULT picks buckets,
 # _TAG_MULT makes the 16-bit tags): sharing _TAG_MULT here would fix the
 # tag's top lg(n) bits per device and shrink effective tag entropy
@@ -84,8 +79,8 @@ _SALTS = (0, 0x3C6EF372, 0x61C88647, 0x9E3779B9)
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    # multi-host: spin up jax.distributed first so jax.devices() spans
-    # every process's chips (ICI-major order — see parallel/multihost.py)
+    # multi-process: start jax.distributed first so jax.devices() spans
+    # every process's devices (see parallel/multihost.py)
     mh.maybe_initialize()
     devices = devices if devices is not None else jax.devices()
     n = n_devices or len(devices)
@@ -133,9 +128,10 @@ def _dispatch(payloads: tuple, owner: jnp.ndarray, valid: jnp.ndarray,
     reads sorted entry starts[j//cap] + j%cap) and the per-query slot map
     comes from one inverse-permutation sort. The previous form scattered
     payloads + a source map into the n*cap tables; at big per-device
-    shapes (Bl*G ~ 0.5M probe queries at 10M-on-1-device) those scatters
-    were the diagnosed 148 ms/round cost of DIST_BENCH chip_1dev_10M —
-    TPU scatter lowering runs far below sort+gather speed."""
+    shapes (Bl*G ~ 0.5M probe queries at 10M reads on one device) those
+    scatters dominated the round on the previous accelerator, whose
+    scatter lowering ran far below sort+gather speed (kept until measured
+    on the H100, ROADMAP 3.3)."""
     Q = owner.shape[0]
     key = jnp.where(valid, owner, n)            # invalid to the end
     idx = jnp.arange(Q, dtype=jnp.int32)
@@ -272,7 +268,7 @@ def _dist_programs(mesh: Mesh, Np: int, W: int, B: int, C: int, SC: int,
 
     sh = Pspec("shard")
     rep = Pspec()
-    build = jax.jit(shard_map(
+    build = jax.jit(jax.shard_map(
         build_fn, mesh=mesh, in_specs=(sh,),
         out_specs=(sh, sh, sh, sh, sh), check_vma=False))
 
@@ -282,7 +278,7 @@ def _dist_programs(mesh: Mesh, Np: int, W: int, B: int, C: int, SC: int,
         rids2 = dct.compact_bins_dev(keys_l, rids_l, claimed)
         return rids2, dct.pairs_from_rids(rids2)
 
-    compact = jax.jit(shard_map(
+    compact = jax.jit(jax.shard_map(
         compact_fn, mesh=mesh, in_specs=(sh, sh, rep),
         out_specs=(sh, sh), check_vma=False))
 
@@ -458,7 +454,11 @@ def _dist_programs(mesh: Mesh, Np: int, W: int, B: int, C: int, SC: int,
         ks, cs, gs = jax.lax.sort((props, cls, gidx), num_keys=3)
         firstp = jnp.concatenate([jnp.array([True]), ks[1:] != ks[:-1]])
         win_sorted = firstp & (ks != _BIG)
-        _, win_all = jax.lax.sort((gs, win_sorted), num_keys=1)
+        # int32, not bool: see engine.resolve_conflicts (GPU sort-to-
+        # scatter rewrite of a permutation-keyed sort)
+        _, win_all = jax.lax.sort((gs, win_sorted.astype(jnp.int32)),
+                                  num_keys=1)
+        win_all = win_all.astype(bool)
 
         # replicated claimed-bitmap update for every winner (winner bits
         # are previously 0 — proposals were filtered by the bitmap and
@@ -550,7 +550,7 @@ def _dist_programs(mesh: Mesh, Np: int, W: int, B: int, C: int, SC: int,
     def flush_fn(state, btab, pairs, rows_local, seed_slice, maxshift):
         # per-round emissions are stacked by the scan and compacted ONCE
         # per flush with a stable sort (the per-round positional scatter
-        # this replaces cost ~17% of the single-chip round)
+        # this replaces was a large share of the single-device round)
         cnt0 = jnp.zeros((Bl,), jnp.int32)
 
         def body(carry, _):
@@ -582,7 +582,7 @@ def _dist_programs(mesh: Mesh, Np: int, W: int, B: int, C: int, SC: int,
     state_spec = dict(counts=sh, ref_len=sh, active=sh, shift_base=sh,
                       first_rid=sh, left_phase=sh, claimed=rep,
                       queue_pos=sh, n_queue=sh)
-    flush = jax.jit(shard_map(
+    flush = jax.jit(jax.shard_map(
         flush_fn, mesh=mesh,
         in_specs=(state_spec, sh, sh, sh, sh, rep),
         out_specs=(state_spec, sh, sh),
@@ -670,8 +670,11 @@ class DistReorderEngine:
         """Full distributed reorder. Returns filtered walker-major
         (rid, flag, pos_delta, rc) rows like ReorderEngine.run."""
         import sys
+        import time
         prog = self._prog
         m = self.mesh
+        eng.LAST_RUN_STATS.clear()
+        t_start = time.time()
         rows_dev = mh.put_sharded(m, self.packed)
         btab, keys_dev, rids, pairs, dropped = prog["build"](rows_dev)
         nd = int(np.asarray(mh.to_host(dropped)).sum())
@@ -751,4 +754,17 @@ class DistReorderEngine:
         # drain the speculative in-flight flush
         buf_k, _ = inflight
         chunks.append(eng._compact_emit(np.asarray(mh.to_host(buf_k))))
-        return eng._emissions_from_chunks(chunks)
+        out = eng._emissions_from_chunks(chunks)
+        dt = time.time() - t_start
+        # per-device peak memory while the sharded tables are still live
+        # (None where the backend keeps no allocator stats, or for another
+        # process's devices)
+        peaks = [(d.memory_stats() or {}).get("peak_bytes_in_use")
+                 if d.process_index == jax.process_index() else None
+                 for d in m.devices.flat]
+        eng.LAST_RUN_STATS.update(
+            rounds=rounds, flush_wall_s=round(dt, 3),
+            ms_per_round=round(1000 * dt / max(rounds, 1), 2),
+            emitted=int(len(out)), walkers=self.B, devices=self.n,
+            device_peak_bytes=peaks)
+        return out

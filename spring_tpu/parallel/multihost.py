@@ -1,20 +1,18 @@
-"""Multi-host / multi-slice backend: jax.distributed over ICI + DCN.
+"""Multi-process backend: jax.distributed for meshes that span processes.
 
 Reference analog: none — the reference is a single-process OpenMP tool
-(SURVEY.md §2.3); this is the TPU-native scale-out layer the distributed
-reorder (parallel/dist.py) rides on.
+(SURVEY.md §2.3); this is the layer the distributed reorder
+(parallel/dist.py) uses when its mesh spans several processes.
 
 Run protocol (one process per host, same command everywhere):
 
     SPRING_TPU_COORD=host0:8476 SPRING_TPU_NPROCS=4 SPRING_TPU_PROC=$i \
         python -m spring_tpu.cli -c -i ... -o ...   # with SPRING_TPU_DIST=1
 
-`maybe_initialize()` picks those up and calls jax.distributed.initialize;
-the device mesh then spans every host's chips (mesh axis order follows
-jax.devices(), which groups ICI-connected chips of a slice before DCN
-peers — walker DP traffic stays on ICI, only the small claim-proposal
-all_gather crosses DCN). Every process loads the same input (hosts are
-cheap relative to chips); device arrays are built through the helpers
+`maybe_initialize()` picks those up and calls jax.distributed.initialize
+with the coordinator address, process count and process id; the device
+mesh then spans every process's devices in jax.devices() order. Every
+process loads the same input; device arrays are built through the helpers
 below so each process only materializes its addressable shards:
 
   * put_replicated — same host value on every device (lengths, claimed
@@ -24,9 +22,10 @@ below so each process only materializes its addressable shards:
   * to_host        — fetch a (possibly non-addressable) device array back
     to every host, all_gathering across processes when needed.
 
-Single-process (the tested path — multi-chip CI runs an 8-device CPU
-mesh) these reduce to plain device_put/np.asarray with the same
-semantics, so dist.py has ONE code path for both.
+Single-process (the tested path: the CPU tests run an 8-device virtual
+mesh, and one process drives every GPU of a machine) these reduce to
+plain device_put/np.asarray with the same semantics, so dist.py has ONE
+code path for both.
 """
 from __future__ import annotations
 
@@ -77,21 +76,8 @@ def put_replicated(mesh: Mesh, x) -> jax.Array:
 def put_sharded(mesh: Mesh, x, axis: str = "shard") -> jax.Array:
     """Global host array -> device array sharded on dim 0 along `axis`.
     Multi-process: every process passes the same global array and jax
-    materializes only the addressable shards (falls back to assembling
-    from the process-local block for older jax versions)."""
-    x = np.asarray(x)
-    sharding = NamedSharding(mesh, Pspec(axis))
-    try:
-        return jax.device_put(x, sharding)
-    except ValueError:
-        # older multi-process jax: build from this process's local block
-        n = mesh.shape[axis]
-        rows = x.shape[0] // n
-        blocks = [x[i * rows:(i + 1) * rows] for i in range(n)]
-        local = [blocks[i] for i, d in enumerate(mesh.devices.flat)
-                 if d.process_index == jax.process_index()]
-        return jax.make_array_from_process_local_data(
-            sharding, np.concatenate(local) if local else x[:0])
+    materializes only the addressable shards."""
+    return jax.device_put(np.asarray(x), NamedSharding(mesh, Pspec(axis)))
 
 
 def to_host(x) -> np.ndarray:

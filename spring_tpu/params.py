@@ -60,22 +60,22 @@ NUM_READS_PER_BLOCK_LONG = 10000    # long mode block
 # DEFAULT_BLOCK — 4 MB blocks measured better than the reference's 64 MB
 # on these stream sizes and parallelize across cores)
 
-# --- TPU batch geometry (no reference analog; ours) ---
-# max parallel contig walkers per device. On-chip sweep at 10M reads
-# (2026-08-20): B=8192 beats 16384 on rounds wall (20.3 vs 23.7 s),
-# seed count (326k vs 349k), and archive bytes (348.02 vs 348.21 MB);
-# 4096 is smaller still on bytes but its 960 rounds pay the per-round
-# floor (34 s), and 65536 loses everywhere. 1M keeps B=4096 via the
-# ~256-reads-per-walker auto rule.
+# --- device batch geometry (no reference analog; ours) ---
+# max parallel contig walkers per device. Chosen by a sweep at 10M reads
+# on the previous accelerator: 8192 beat 16384 on seed count and archive
+# bytes; 4096 is smaller still on bytes but needs many more rounds.
+# 1M keeps B=4096 via the ~256-reads-per-walker auto rule. Re-sweep on
+# the H100 (ROADMAP 1.1a).
 REORDER_BATCH = 8192
 DICT_PROBE_CANDIDATES = 2     # candidates fetched per selected probe group.
                               # Bins are shallow (a bin = reads starting at
                               # ONE genome position, ~coverage/readlen
                               # entries), so narrow fetches across MORE
                               # groups beat wide fetches: C=2 x 8 groups
-                              # matched C=8 x 2 groups' claims at 0.65x the
-                              # round time (A/B-measured at 1M reads)
-                              # (bin scan cap; compaction refreshes bins)
+                              # matched C=8 x 2 groups' claims in less
+                              # round time (A/B at 1M reads, previous
+                              # accelerator; bin scan cap, compaction
+                              # refreshes bins)
 
 QUALITY_MODES = ("lossless", "qvz", "ill_bin", "binary")
 

@@ -3,8 +3,8 @@
 Reference analog: quantize_quality + the Illumina-8-level and binary binning
 tables (src/util.cpp:143-188) and QVZ invocation (src/util.cpp:151-164).
 Tables operate on Phred+33 ASCII qualities. The QVZ quantizer itself lives
-in spring_tpu/pipeline/qvz.py (a JAX reimplementation — per-column PMFs and
-Lloyd-Max codebooks are dense math, a natural TPU fit).
+in spring_tpu/pipeline/qvz.py (a vectorized numpy reimplementation —
+per-column PMFs and Lloyd-Max codebooks are dense histogram math).
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ and the reorder-compress stage re-reads the flat quality file once per
 RAM bin of numreads/4 rows (src/reorder_compress_quality_id.cpp:64-68).
 The round-2 pipeline materialized the full (n, maxlen) quality matrix
 instead, which capped it far below the reference's proven 560M-read
-scale (VERDICT r2 missing #1). This module keeps quality memory O(bin)
+scale. This module keeps quality memory O(bin)
 in every mode: raw rows spill to an unlinked temp file (``QualSpool``)
 during parse; once the output order is known, ``drive_quality_bins``
 gathers rows per bin of ~n/8 output rows with ONE sequential spool scan

@@ -7,7 +7,7 @@ src/qvz/src/codebook.cpp:421), used by Spring quantize-only, in place
 (src/qvz/src/qvz.cpp:22-60); entropy coding happens downstream in the
 block codec, exactly as Spring feeds QVZ output to BSC.
 
-TPU-first redesign (not a port): the reference trains one scalar quantizer
+Vectorized redesign (not a port): the reference trains one scalar quantizer
 per (column, previous symbol) pair with a WELL-RNG hi/lo dither. Here the
 whole training pass is dense linear algebra over a (columns, contexts,
 levels) histogram tensor:
@@ -181,7 +181,7 @@ def quantize_matrix(mat: np.ndarray, lengths: np.ndarray,
     # per-column targets come from a Lagrangian allocation over the
     # unconditional column histograms instead of one flat per-column
     # target (which left the RD curve with a cliff between the flat
-    # target and full collapse — AB_REPORT round-2 ratio-0.9 row)
+    # target and full collapse at mid ratios)
     weights = valid.sum(axis=0).astype(np.float64)
     uncond = np.stack([
         np.bincount(sym[valid[:, c], c], minlength=NSYM) for c in range(L)])

@@ -1,13 +1,13 @@
 """Synthetic FASTQ dataset generator for benchmarks and A/B tests.
 
-Models an SRR554369-class dataset (reference baseline logs
-/root/reference/logs/8_29_18/SRR554369.log): a small genome sampled at
+Models an SRR554369-class dataset (the reference's baseline log
+logs/8_29_18/SRR554369.log): a small genome sampled at
 high coverage, 1% substitution noise, both strands, Illumina-like
 position-correlated quality values. Supports single-end and paired-end
 (two files, mates drawn from the same fragment with a normal insert
 size, mate 2 reverse-complemented, as real Illumina PE data is).
 
-Robustness-grid axes (VERDICT r2 #4) — the reference's benchmark
+Robustness-grid axes — the reference's benchmark
 datasets are human-scale and variable-profile; with no network access
 the grid must be synthesized. Beyond the base profile the generator can
 vary: read length (uniform in [lo, hi], exercising variable-length

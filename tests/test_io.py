@@ -49,9 +49,14 @@ def test_bitstream_2bit():
 def test_fastq_block_reader(fq1):
     blocks = list(fastq.read_blocks(fq1, 30))
     assert [len(b) for b in blocks] == [30, 30, 30, 10]
-    assert blocks[0].ids[0] == b"@SRR554369.1 1/1"
-    assert len(blocks[0].seqs[0]) == 100
-    assert len(blocks[0].quals[0]) == 100
+    with open(fq1, "rb") as f:
+        lines = f.read().splitlines()
+    # every record of every block, field by field, against the raw lines
+    recs = [(i, s, q) for b in blocks
+            for i, s, q in zip(b.ids, b.seqs, b.quals)]
+    assert recs == list(zip(lines[0::4], lines[1::4], lines[3::4]))
+    assert blocks[0].ids[0] == b"@SYN.1/1"
+    assert len({len(s) for _, s, _ in recs}) > 1     # variable lengths
 
 
 def test_fasta_block_reader(fa1):

@@ -163,6 +163,23 @@ def test_corrupt_archive_fuzz(fq1, tmp_path):
     _fuzz_archive(fq1, arc, tmp_path, flips=25)   # short-mode streams
 
 
+def test_member_crc_detects_payload_flip(fq1, tmp_path):
+    """The entropy codecs carry no checksum of their own: a flipped byte
+    inside a stored member's payload must still fail the read (manifest
+    CRC32), not decode into wrong records."""
+    import tarfile
+    arc = tmp_path / "a.spring"
+    api.compress([fq1], str(arc), api.CompressOptions(verbose=False))
+    with tarfile.open(arc) as t:
+        m = t.getmember("seq.0")
+    data = bytearray(arc.read_bytes())
+    data[m.offset_data + m.size // 2] ^= 0x5A
+    (tmp_path / "bad.spring").write_bytes(bytes(data))
+    with pytest.raises(RuntimeError, match="seq.0 is corrupt"):
+        api.decompress(str(tmp_path / "bad.spring"),
+                       [str(tmp_path / "out.fastq")], verbose=False)
+
+
 def _fuzz_archive(fq1, arc, tmp_path, flips):
     import numpy as np
     good = open(fq1, "rb").read()

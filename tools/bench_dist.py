@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Benchmark the distributed reorder engine (VERDICT r3 next #2).
+"""Benchmark the distributed reorder engine.
 
 Modes:
   python tools/bench_dist.py chip <fastq>     — on the attached device
-      mesh (1 real TPU here): full compress wall, SPRING_TPU_DIST=1 vs
-      the default engine, same input, same process ordering (default
-      first). Reports both walls + the dist/default ratio.
+      mesh (every visible GPU, in one process): full compress wall,
+      SPRING_TPU_DIST=1 vs the default engine, same input, same process
+      ordering (default first). Reports both walls + the dist/default
+      ratio.
   python tools/bench_dist.py cpu8 [n_reads]   — 8-virtual-device CPU
       mesh: times one warm dist flush, then a jax.profiler trace of it,
       and reports the collective share (all-to-all / all-gather /

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """One traced 10M compress pass: stage walls + engine stats, for
-codec-tail overlap measurements (VERDICT r4 next #7). Reuses the bench
+codec-tail overlap measurements. Reuses the bench
 dataset if present; prints one JSON line with the stage dict."""
 import json
 import os

@@ -1,6 +1,6 @@
 """Two-process jax.distributed smoke test for the sharded reorder.
 
-VERDICT r2 missing #4: parallel/multihost.py had never executed with
+parallel/multihost.py is otherwise never executed with
 process_count > 1. This driver spawns TWO local CPU processes, forms a
 2-device mesh spanning both (1 CPU device per process), runs the FULL
 distributed reorder on identical synthetic input in each, and checks

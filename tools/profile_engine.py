@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Capture a jax.profiler device trace of reorder flushes on the TPU.
+"""Capture a jax.profiler device trace of reorder flushes on the device.
 
 Usage: python tools/profile_engine.py [n_reads] [out_dir]
 Prints the top ops by self time from the captured trace.
@@ -81,29 +81,6 @@ def main():
     print(f"--- top ops by total duration ({tf}) ---")
     for name, dur in top:
         print(f"{dur / 1e3:10.1f} ms  {name[:120]}")
-
-    # device-utilization model: the round is memory-bound (gathers +
-    # elementwise over walker tiles), so report achieved HBM traffic vs
-    # the v5e roofline (~819 GB/s) instead of MFU (the MXU is idle by
-    # design — there are no matmuls in the search)
-    dev_s = max((v for k, v in tot.items()
-                 if k.startswith("jit_flush_fn")), default=0) / 1e6
-    if dev_s:
-        B, M, GSEL, SC, D = e.B, 16, 8, 16, len(e.dicts)
-        W = e.W + 1
-        per_round = (
-            B * SC * 2 * D * 48           # compact btab probe rows (48 B)
-            + B * GSEL * 64               # pairs-row candidate fetch
-            + B * M * W * 4               # verify row gather
-            + B * 4 * e.Lb * 4 * 35       # counts roll/frames/one-hot passes
-            + (B * M + B) * 12)           # claim scatters (bitmap + rows)
-        total_bytes = per_round * eng.FLUSH_ROUNDS
-        gbs = total_bytes / dev_s / 1e9
-        print(f"--- roofline: ~{total_bytes / 1e6:.0f} MB modeled traffic "
-              f"in {dev_s:.2f}s device = {gbs:.0f} GB/s "
-              f"({100 * gbs / 819:.0f}% of v5e HBM peak; scattered row "
-              f"gathers measure ~7 GB/s on v5e, so the probe path is the "
-              f"floor) ---")
 
 
 if __name__ == "__main__":

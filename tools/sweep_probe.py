@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""On-chip probe-config sweep at the 10M bench shape (VERDICT r4 next #2).
+"""On-device probe-config sweep at the 10M bench shape.
 
 Usage: python tools/sweep_probe.py <fastq> [config ...]
 Configs are NAME=ENV:VAL[,ENV:VAL...] pairs, e.g.
